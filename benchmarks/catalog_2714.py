@@ -1,7 +1,9 @@
 import os, sys, time, json
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np, jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from shazam_tpu.runtime import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 from shazam_tpu import SIA
 from shazam_tpu.audio.synth import synth_song
 

@@ -1,18 +1,19 @@
 """recognize_clip device latency vs the REAL catalog_full index.
 
 Loads the 31.85M-hash index dumped by ``catalog_full.py`` (CATALOG_DEBUG
-run, /tmp/catalog_debug.npz) — real fingerprints of 2,714 full-length
+run, ``catalog_debug.npz`` in the temp directory) — real fingerprints of 2,714 full-length
 tracks, including the genuine hyper-common hash runs that synthetic
 uniform-key benches miss — and times the single-dispatch
 ``recognize_on_device`` program with and without the bucket-CDF head.
 
-Timing protocol per CLAUDE.md: K iterations chained in one jitted
+Timing protocol: K iterations chained in one jitted
 fori_loop consuming every output leaf; report (T_k - T_1)/(k-1).
 """
 
 import functools
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -22,14 +23,17 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from shazam_tpu.runtime import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from shazam_tpu.api import SIA
 from shazam_tpu.index.store import FingerprintIndex
 from shazam_tpu.index.search import maybe_build_head
 from shazam_tpu.match.ondevice import recognize_on_device
 
-NPZ = os.environ.get("INDEX_NPZ", "/tmp/catalog_debug.npz")
+NPZ = os.environ.get("INDEX_NPZ", os.path.join(tempfile.gettempdir(),
+                                                "catalog_debug.npz"))
 FS = 44100
 CLIP_S = 15.0
 

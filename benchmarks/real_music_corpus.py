@@ -1,7 +1,8 @@
 """Real-music mini-corpus sweep: variants of the reference's own MP3.
 
-The sandbox's only real music is ``/root/reference/songsES/000002.mp3``
-(30 s stereo, the reference's ES-path test fixture). The at-scale
+The input is one real recording, ``RMC_MP3`` (the reference project's
+ES-path test fixture ``songsES/000002.mp3``, 30 s stereo, is what this
+was written for; it is not part of this repository). The at-scale
 accuracy numbers here run on a synthetic generator *validated against*
 real-music statistics; this bench anchors that validation on actual
 music: it derives a catalog of distinct "songs" from the real recording
@@ -24,7 +25,7 @@ Catalog axes (every entry derived from the one real recording):
 - segment (``RMC_SEGMENTS`` > 1): non-overlapping time slices of the
   recording are DIFFERENT music content, multiplying the catalog
   without manufacturing same-content near-dups (3 segments x 32 rates
-  = a 96-entry real-audio catalog; round-5 verdict stretch item).
+  = a 96-entry real-audio catalog).
 
 Query-side stress sweeps (clip transforms — catalog unchanged, so
 accuracy stays well-defined): clean, city-traffic @ 0 dB SNR (the
@@ -32,11 +33,14 @@ reference's own robustness experiment), the calibrated synthetic
 acoustic channel, a +6 dB/oct treble EQ tilt, and a 300-3400 Hz
 phone-band limit (stem-style filtering).
 
-Env: RMC_VARIANTS (rates, default 24), RMC_SEGMENTS (default 1),
+Env: RMC_MP3 (the recording, required), RMC_NOISE (the reference's
+city-traffic MP3; the noise sweep is skipped without it),
+RMC_VARIANTS (rates, default 24), RMC_SEGMENTS (default 1),
 RMC_CLIP (default 5.0 s), RMC_PER (clips/variant, default 4),
 RMC_SEVERITY (channel severity, default
 audio.channel.CALIBRATED_SEVERITY).
-Run: python benchmarks/real_music_corpus.py  (CPU ok: JAX_PLATFORMS=cpu)
+Run: RMC_MP3=path/to/000002.mp3 python benchmarks/real_music_corpus.py
+(CPU ok: JAX_PLATFORMS=cpu)
 """
 
 import os
@@ -47,16 +51,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax                     # noqa: E402
-
-if os.environ.get("JAX_PLATFORMS") == "cpu":
-    jax.config.update("jax_platforms", "cpu")
-
-MP3 = os.environ.get(
-    "RMC_MP3", "/root/reference/songsES/000002.mp3")
-NOISE = os.environ.get(
-    "RMC_NOISE",
-    "/root/reference/city-traffic-sounds/city-traffic-sounds.mp3")
+MP3 = os.environ.get("RMC_MP3")
+NOISE = os.environ.get("RMC_NOISE")
 N_VARIANTS = int(os.environ.get("RMC_VARIANTS", 24))
 N_SEGMENTS = int(os.environ.get("RMC_SEGMENTS", 1))
 CLIP_S = float(os.environ.get("RMC_CLIP", 5.0))
@@ -74,6 +70,9 @@ def main():
 
     severity = float(os.environ.get("RMC_SEVERITY", CALIBRATED_SEVERITY))
 
+    if not MP3:
+        raise SystemExit("set RMC_MP3 to the recording to derive the "
+                         "catalog from")
     pcm, fs, nch = decode_mp3(MP3)
     mono = pcm.reshape(-1, nch).mean(axis=1).astype(np.float64)
     if fs != FS:
@@ -109,7 +108,7 @@ def main():
           flush=True)
 
     noise = None
-    if os.path.exists(NOISE):
+    if NOISE and os.path.exists(NOISE):
         npcm, nfs, nnch = decode_mp3(NOISE)
         noise = npcm.reshape(-1, nnch).mean(axis=1).astype(np.int16)
         if nfs != FS:

@@ -2,7 +2,9 @@ import os, sys, time, functools
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np, jax, jax.numpy as jnp
 from jax import lax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from shazam_tpu.runtime import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 from shazam_tpu.index.store import FingerprintIndex
 from shazam_tpu.match.ondevice import recognize_on_device
 from shazam_tpu.audio.synth import synth_song

@@ -1,10 +1,10 @@
-"""shazam-tpu: a TPU-native audio-fingerprinting framework.
+"""shazam-tpu: an accelerator-native audio-fingerprinting framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of
-CarlosArturoMe/shazam ("SIA"): Shazam-style audio identification with
-STFT constellation fingerprints, an HBM-resident hash index, and
-offset-histogram matching — designed for TPU meshes instead of a SQL
-server.
+A ground-up JAX/XLA rebuild of the capabilities of CarlosArturoMe/shazam
+("SIA"): Shazam-style audio identification with STFT constellation
+fingerprints, a device-resident hash index, and offset-histogram
+matching — designed for accelerator meshes (an NVIDIA GPU, or several)
+instead of a SQL server.
 """
 
 from .config import FingerprintConfig, DEFAULT_CONFIG

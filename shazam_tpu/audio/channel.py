@@ -27,8 +27,7 @@ import numpy as np
 
 # Severity at which clean 5 s/100-song accuracy through the channel
 # lands in the reference's real-loopback band (0.93-0.96), fit by the
-# round-5 calibration sweep (300 clips per point, music-style catalog;
-# .tpu_logs/chan100_s*.log, table in benchmarks/README.md):
+# calibration sweep (300 clips per point, music-style catalog):
 #   0.25 -> 0.9500   0.50 -> 0.9467   0.75 -> 0.9233   1.00 -> 0.8700
 # 0.5 is the HARDEST severity still inside the band (0.25 is also
 # in-band); 1.0 is the stress rig.

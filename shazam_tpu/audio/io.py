@@ -1,8 +1,8 @@
 """Host-side audio I/O.
 
-TPU-native equivalent of the reference's L0 layer (``__init__.py:70-113``,
+Equivalent of the reference's L0 layer (``__init__.py:70-113``,
 ``read()``): decode stays on the host CPU feeding fixed-shape device
-buffers; the TPU never sees a file.
+buffers; the device never sees a file.
 
 The reference decodes via pydub/ffmpeg (no ffmpeg binary here), so:
 

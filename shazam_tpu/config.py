@@ -3,7 +3,7 @@
 One frozen dataclass carrying every knob of the reference pipeline
 (constants at reference ``__init__.py:41-51`` and the per-script config
 blocks, e.g. ``recognizer_test.py:36-57``), plus the static capacities a
-TPU pipeline needs (XLA traces fixed shapes, so dynamic peak/hash counts
+device pipeline needs (XLA traces fixed shapes, so dynamic peak/hash counts
 become capacity + validity masks).
 
 Defaults are numerically identical to the reference.
@@ -34,7 +34,7 @@ class FingerprintConfig:
     min_hash_time_delta: int = 0      # MIN_HASH_TIME_DELTA (frames)
     max_hash_time_delta: int = 200    # MAX_HASH_TIME_DELTA (frames)
     fingerprint_reduction: int = 20   # FINGERPRINT_REDUCTION (hex chars kept = 80 bits)
-    # --- static capacities (TPU-only concept; overflow is detected, never silent) ---
+    # --- static capacities (device-only concept; overflow is detected, never silent) ---
     peak_capacity: int = 8192         # max constellation peaks per channel
     hash_capacity: int = 32768        # max hashes per channel (<= 4 * peak_capacity)
     # max expanded (row x query-offset) vote entries. Expansion cost is
@@ -72,28 +72,27 @@ class FingerprintConfig:
     # candidate-pruned rank above when rank_candidates > 0 (sort
     # otherwise); "sort" = the segment-scatter sort rank; "scan" = the
     # scatter-free sort+scan rank (match/lookup._scan_vote_rank);
-    # "auto" = pruned at the fast tier (measured best there, exp_pruned
-    # r4) and scan at escalated tiers (the scatter ranks pay ~10 ns per
-    # stream element there, exp_esc/exp_scan r4) — element-identical
-    # results in every case (tested); they differ only in per-element
-    # HBM cost
+    # "auto" = pruned at the fast tier and scan at escalated tiers (the
+    # scatter ranks pay a read-modify-write per stream element there) —
+    # element-identical results in every case (tested); they differ only
+    # in per-element device-memory cost. The choice per tier is queued
+    # for re-derivation from measured cells (ROADMAP queue 1)
     vote_rank: str = "auto"
     # block-gather expansion width for the sparse matchers: matched rows
     # are contiguous runs, read as aligned (N/B, B) payload rows —
-    # sequential DMAs instead of per-row random gathers (measured 60x at
-    # the 1M tier, exp_esc r4). 0 = scalar gathers. Requires the packed
+    # sequential reads instead of per-row random gathers. 0 = scalar
+    # gathers. Requires the packed
     # payload layout with capacity a multiple of the width; the api
     # falls back to scalar when the layout can't support it
     expand_block: int = 128
     # blocked expansion only pays past this match capacity: the static
     # block budget adds 2 * expand_block_runs * expand_block stream
-    # elements, which dwarfs the fast tier's own capacity (the fast
-    # tier's scalar gather cost is already ~2 ms); below this the api
+    # elements, which dwarfs the fast tier's own capacity; below this the api
     # uses scalar expansion
     expand_block_min_capacity: int = 65536
     # nonempty-run budget for the blocked expansion's static block
     # count (cap/B + 2*runs blocks): every rank pass downstream costs
-    # ~9 ns per STREAM element (exp_scan r4) and query packs pad lanes
+    # per STREAM element and query packs pad lanes
     # to a pow2 bucket, so budgeting for all padded lanes (4096 at the
     # bench packs) more than doubles the escalated-tier stream. Real
     # 15 s clips hold < 1024 nonempty runs; queries with more get
@@ -101,9 +100,8 @@ class FingerprintConfig:
     # re-runs them through the scalar expansion. 0 = all lanes
     expand_block_runs: int = 1024
     # bounds-first escalation: at indexes this large, most real queries
-    # overflow the fast tier (62-75% measured at 81-95M rows), so the
-    # fast-tier program is mostly a wasted ~4 ms — a ~1.4 ms bounds-only
-    # probe (match/lookup.query_total) reads the EXACT total and the
+    # overflow the fast tier, so the fast-tier program is mostly
+    # wasted — a bounds-only probe (match/lookup.query_total) reads the EXACT total and the
     # match dispatches straight to the fitting tier. Below this row
     # count the fast-tier-first policy (with the provably-exact early
     # accept) stays, since most queries fit it there. 0 disables
@@ -113,28 +111,27 @@ class FingerprintConfig:
     #   returns its search bounds; a clamped result is accepted when
     #   provably exact-top-1 (margin > excluded runs, see
     #   decision_escalation above), else ONE fitted-tier re-dispatch
-    #   reusing the bounds. Measured round 5 (exp_margin): 7/8 prod
-    #   packs and most music packs decide at the 65536 tier, so the
-    #   median query pays ~one fast dispatch instead of probe + fitted.
-    # "bounds" — the round-4 bounds-first policy: exact-total probe,
-    #   then one fitting-tier dispatch (full vote counts on every
-    #   query; ~2x the decided p50 on corpora with strong margins).
+    #   reusing the bounds. Most production-scale packs decide at the
+    #   65536 tier, so the median query pays ~one fast dispatch instead
+    #   of probe + fitted.
+    # "bounds" — the bounds-first policy: exact-total probe, then one
+    #   fitting-tier dispatch (full vote counts on every query).
     # "auto" — "decide" when decision_escalation is True, else "bounds".
     escalation_policy: str = "auto"
     # the decided-first dispatch tier (0 = match_capacity). Corpora with
     # longer hyper-common runs (music skew) may decide more at a higher
     # tier: the dropped-run count shrinks with capacity while the
-    # dispatch cost grows only ~1-2 ms per x4 at these sizes — pick the
-    # smallest tier whose measured decide rate clears ~3/4 (exp_margin).
+    # dispatch cost grows with it — pick the smallest tier whose
+    # measured decide rate clears ~3/4.
     decide_capacity: int = 0
     # self-tuning decide tier: when more than half of the last
     # decide_adapt_window unpinned decided-first dispatches were
     # UNDECIDED (paid the fitted re-dispatch), the engine raises its
     # decide tier one step (never past decide_adapt_max) — a serving
     # process converges to the corpus's optimum without per-deployment
-    # tuning. The optimum is corpus-dependent (measured: the 95.3M tone
-    # build decides 7/8 at 65536 while the music-skew build's dropped-
-    # run counts need a higher tier). 0 disables adaptation.
+    # tuning. The optimum is corpus-dependent (the 95.3M tone build
+    # decides 7/8 at 65536 while the music-skew build's dropped-run
+    # counts need a higher tier). 0 disables adaptation.
     decide_adapt_window: int = 64
     decide_adapt_max: int = 524288
     # capacity tiers grow x4 up to this, x2 after: escalated-tier cost
@@ -144,8 +141,8 @@ class FingerprintConfig:
     match_tier_fine_from: int = 262144
     # dense-histogram cutoff: past n_songs * delta_range vote bins the
     # dense (n_songs, delta_range) table costs more than the
-    # O(match_capacity) sparse/pruned ranks (measured ~1.5 GB/query at
-    # 12K songs).  Exposed mainly so tests can force the big-catalog
+    # O(match_capacity) sparse/pruned ranks (~1.5 GB/query at 12K
+    # songs).  Exposed mainly so tests can force the big-catalog
     # paths on small corpora; every matcher is element-identical.
     sparse_vote_threshold: int = 16_000_000
     # --- matching / results ---

@@ -14,7 +14,8 @@ life-cycle semantics (``mysql_database.py``):
   235-255``, ``metadatatable.sql``)
 
 Backed by stdlib sqlite3 (file or in-memory) — a server is exactly what
-the TPU-native design removes; the hot index lives in HBM (store.py).
+the device-resident design removes; the hot index lives in device memory
+(store.py).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """HBM-resident fingerprint index: sorted 80-bit keys + payload arrays.
 
-TPU-native replacement for the reference's external inverted index (the
+Device-resident replacement for the reference's external inverted index (the
 MySQL ``fingerprints`` table, ``mysql_database.py:46-59``: BINARY(10) hash
 keyed rows of (song_id, offset)). Instead of a server, the catalog lives
 as five parallel device arrays sorted lexicographically by key:

@@ -2,9 +2,9 @@
 
 The reference answers one query at a time over a DB socket (thread pools
 just parallelize the SELECT batches, ``recognizer_thread.py:290-298``).
-On TPU the natural form is a vmap over the whole query batch: every
-clip's binary searches, vote expansion and histogram reduce run in one
-compiled program, amortizing dispatch and filling the chip — the serving
+On an accelerator the natural form is a vmap over the whole query batch:
+every clip's binary searches, vote expansion and histogram reduce run in
+one compiled program, amortizing dispatch and filling the device — the serving
 path for high-QPS deployments.
 """
 

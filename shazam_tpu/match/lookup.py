@@ -78,24 +78,22 @@ def _expand_blocked(index_arrays, q_hi, q_lo, q_ex, q_t, q_valid, *,
                     match_capacity: int, offset_stride: int,
                     block_size: int, head=None, uview=None,
                     u_steps: int = 0, max_runs: int = 0, bounds=None):
-    """Block-gather expansion: ``_expand``'s contract, sequential DMAs.
+    """Block-gather expansion: ``_expand``'s contract, sequential reads.
 
     The scalar expansion issues ``match_capacity`` independent payload
-    gathers — ~120 ns each of random-access HBM, the measured wall of
-    every escalated tier (exp_pruned r4: the 4M tier is ~490 ms and the
-    rank choice moves it <1%). Matched rows are CONTIGUOUS runs, so
-    this reads them as aligned ``block_size``-row rows of the payload's
-    (N/B, B) reshape: each gathered element is one sequential DMA, so
-    the expansion moves the same bytes in cap/B transfers.
+    gathers of random-access device memory, the wall of every escalated
+    tier. Matched rows are CONTIGUOUS runs, so this reads them as
+    aligned ``block_size``-row rows of the payload's (N/B, B) reshape:
+    each gathered element is one sequential read, so the expansion
+    moves the same bytes in cap/B transfers.
 
     Semantics: whole runs, shortest-first (in blocks), ``total`` exact,
     ``n_dropped`` = runs the budget excluded — the same invariants the
     early-accept proof needs. The static budget is ``match_capacity //
     B + 2 * R`` blocks (alignment can waste up to 2 partial blocks per
     nonempty run), where ``R = min(n_lanes, max_runs or n_lanes)``.
-    ``max_runs`` matters because the rank downstream pays ~9 ns per
-    STREAM element (measured, exp_scan r4) and query packs pad lanes to
-    a pow2 bucket: at 4096 padded lanes / B=128 the default budget adds
+    ``max_runs`` matters because the rank downstream pays per STREAM
+    element and query packs pad lanes to a pow2 bucket: at 4096 padded lanes / B=128 the default budget adds
     1.05M stream elements while real 15 s clips hold < 1024 nonempty
     runs.  Runs past the shortest-first ``max_runs`` budget are DROPPED
     and counted in ``n_dropped`` (never silent — the early-accept
@@ -169,7 +167,7 @@ def _blocked_expand_core(payload, lb, ub, lens, q_t, *, block_size: int,
     # rows never exceed match_capacity, so after the rank's key sort
     # every live key sits in the first match_capacity slots — the ranks
     # run on that static prefix instead of the padded block stream
-    # (rank passes cost ~9 ns per STREAM element; see _scan_vote_rank).
+    # (rank passes cost per STREAM element; see _scan_vote_rank).
     # "total <= capacity (and runs <= budget) => nothing dropped" still
     # holds: both cumulative budgets admit every run then.
     cum_rows = jnp.cumsum(jnp.take(lens, order))
@@ -223,16 +221,14 @@ def query_total(index_arrays, q_hi, q_lo, q_ex, q_valid, *,
 
     The bounds probe behind the api's bounds-first escalation policy
     (config.bounds_probe_min_rows): at production scale most real
-    queries overflow the fast tier (62-75% measured at 81-95M rows), so
-    a full fast-tier program is mostly a wasted ~4 ms — this ~1.4 ms
-    probe (exp_esc r4, 95.3M rows via the unique view) reads the exact
+    queries overflow the fast tier, so a full fast-tier program is
+    mostly wasted — this probe (a search, no expansion) reads the exact
     total and the caller dispatches straight to the fitting tier.
 
     ``with_bounds=True`` also returns the per-lane (lb, ub) so the
-    fitted dispatch can REUSE the search instead of re-descending
-    (~1.6 ms of its cost at 95.3M — the descent is a fixed-round loop
-    of latency-bound gathers, and per-kernel overhead dominates these
-    programs; measured exp_policy2 r4): the caller keeps them on device
+    fitted dispatch can REUSE the search instead of re-descending (the
+    descent is a fixed-round loop of latency-bound gathers): the caller
+    keeps them on device
     and passes them back as the matcher's ``bounds`` argument.
     """
     if uview is not None:
@@ -311,8 +307,8 @@ def _expand(index_arrays, q_hi, q_lo, q_ex, q_t, q_valid, *,
     # expand: slot v -> owning (sorted-space) run p_s. p_s[v] =
     # #{i: cum_inc[i] <= v}, computed as a scatter of ones at the bucket
     # boundaries + one prefix sum — a searchsorted here costs
-    # match_capacity * log2(n_pairs) random HBM gathers (TPU has no
-    # data cache), ~3x the search descent's
+    # match_capacity * log2(n_pairs) dependent random gathers, ~3x
+    # the search descent's
     v = jnp.arange(match_capacity, dtype=jnp.int32)
     marks = jnp.zeros(match_capacity, jnp.int32).at[cum_inc].add(
         1, mode="drop")
@@ -489,11 +485,8 @@ def _take_first(q_first, p, expand_block: int):
     """``q_first[p]`` for the expanded stream — without the full-stream
     gather when the stream is BLOCKED.
 
-    A flat ``jnp.take(q_first, p)`` over the blocked stream costs
-    ~8-10 ns per element on this TPU (XLA lowers element gathers close
-    to serial) — measured round 5 as **10.5 ms of the 16.17 ms**
-    1M-tier dispatch on the music build (exp_scan3: every truncated
-    variant that DCEs ``first`` runs at 5.7 ms). Blocked expansion's
+    A flat ``jnp.take(q_first, p)`` over the blocked stream is one
+    random gather per stream element. Blocked expansion's
     ``p`` is CONSTANT within each block (``_blocked_expand_core``
     broadcasts the owning pair across the block's lanes), so gathering
     once per block and broadcasting is element-identical at 1/B the
@@ -554,8 +547,8 @@ def match_query_sparse(
     """``match_query`` without the dense histogram — EXACT, for big catalogs.
 
     The dense (n_songs, delta_range) vote histogram costs ~3 full passes
-    over n_songs * delta_range * 4 bytes per query (~1.5 GB / ~5 ms at
-    12K songs).  A query only produces <= match_capacity votes, so the
+    over n_songs * delta_range * 4 bytes per query (~1.5 GB at 12K
+    songs).  A query only produces <= match_capacity votes, so the
     histogram is inherently sparse: sort the packed (song, delta) vote
     keys, run-length count them with segment ops, and reduce per song
     with small scatter-max/min passes — O(match_capacity) work plus two
@@ -685,12 +678,11 @@ def _scan_vote_rank(sid, delta, first, valid, total, n_dropped=None, *,
     """Scatter-free vote rank: one single-operand sort + cumulative scans.
 
     ELEMENT-IDENTICAL to ``_sparse_vote_rank`` (tested), built for the
-    escalated capacity tiers where that rank's real cost turned out to
-    live: XLA TPU scatter runs ~10 ns/element (measured, exp_esc r4 —
-    the hashed scatter at 1M rows is 10.05 ms while the single-operand
-    ``lax.sort`` is 0.97 ms), and the sparse rank issues three to four
-    full-stream scatters (segment counts, per-segment key min, per-song
-    max/min).  This rank touches HBM with exactly one int32 sort plus a
+    escalated capacity tiers where that rank's cost lives: the sparse
+    rank issues three to four full-stream scatters (segment counts,
+    per-segment key min, per-song max/min), each a serialized
+    read-modify-write per element.  This rank touches device memory with
+    exactly one int32 sort plus a
     handful of elementwise/cumulative passes:
 
     1. sort the packed vote keys (``song * delta_range + dbin`` —
@@ -711,8 +703,7 @@ def _scan_vote_rank(sid, delta, first, valid, total, n_dropped=None, *,
 
     No O(n_songs) or O(table) state is ever allocated, so the rank also
     vmaps cleanly for the batched matcher (no per-clip 64 MB hashed
-    tables — see ADVICE r3) and its cost is the sort: ~1.4 ns/element
-    vs ~30-40 ns/element for the scatter ranks.
+    tables) and its cost is the sort.
     """
     cap = sid.shape[0]
     dbin = delta - delta_min
@@ -729,8 +720,8 @@ def _scan_vote_rank(sid, delta, first, valid, total, n_dropped=None, *,
     # key still fits int32: (song, dbin) -> key is order-preserving for
     # ANY range >= delta_range, so every downstream value is identical,
     # and the two full-stream divmods below become shifts/masks (integer
-    # division by a non-pow2 constant is a multi-op sequence per element
-    # on the VPU). Falls back to the exact range when pow2 would
+    # division by a non-pow2 constant is a multi-op sequence per
+    # element). Falls back to the exact range when pow2 would
     # overflow (check_vote_key already guarantees the exact range fits).
     dr2 = 1 << max(int(delta_range) - 1, 0).bit_length()
     if n_songs * dr2 >= (1 << 31):
@@ -840,10 +831,8 @@ def _pruned_vote_rank(sid, delta, first, valid, total, n_dropped=None, *,
                       topn: int, n_candidates: int):
     """Candidate-pruned dense vote rank: O(cap) scatters, no vote sort.
 
-    At escalated capacities the sparse rank's ``lax.sort(cap)`` dominates
-    the whole match (measured: 32.75 ms of the 36.98 ms fitting tier at
-    262144 rows vs the 95.3M-hash production index — exp_decided.py).
-    This path exploits the bound that a song's best (song, delta) bin
+    At escalated capacities the sparse rank's ``lax.sort(cap)`` can
+    dominate the whole match.  This path exploits the bound that a song's best (song, delta) bin
     can hold at most as many votes as the song has expanded rows:
 
     1. scatter votes into a HASHED bin table (size >= 16x capacity, so
@@ -1133,9 +1122,7 @@ def _expand_stacked(stacked_arrays, heads, q_hi, q_lo, q_ex, q_t, q_valid,
 
     The per-span variant pays n_spans x match_capacity expansion gathers
     and hands the vote rank an n_spans-x-longer stream even though the
-    real row count is the same catalog split S ways (measured: 32.3 ms
-    recognize_clip at 436.7M in 4 spans vs 4.0 ms at 95.3M in one — the
-    known lever).  Here the descents stay vmapped over the span axis
+    real row count is the same catalog split S ways.  Here the descents stay vmapped over the span axis
     (S x the lanes in one latency-bound random-HBM round), but the runs
     of ALL spans then share one shortest-first budget (the _expand
     policy) and gather through the flat (n_spans * span_rows) view of
@@ -1199,7 +1186,7 @@ def _expand_stacked(stacked_arrays, heads, q_hi, q_lo, q_ex, q_t, q_valid,
             max_runs=expand_runs * n_spans if expand_runs else 0,
             pair_mod=n_pairs)
         # per-block gather + broadcast, not a full-stream element gather
-        # (measured ~10 ns/element — see _take_first)
+        # (see _take_first)
         first = _take_first(q_first, pair, expand_block)
         return sid, delta, first, valid, total, total, n_dropped
 

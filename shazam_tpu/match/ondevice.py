@@ -5,7 +5,7 @@ host<->device round trips plus host set arithmetic — fine for batch
 benches, but serving latency is dominated by those hops. This program
 keeps everything on device:
 
-1. fused fingerprint (Pallas kernels),
+1. fingerprint (``ops.fingerprint.fingerprint_batch``),
 2. query dedup on device: lexicographic multi-key sort of the hash lanes
    (invalid lanes forced to the max key), first-occurrence masks for
    unique (hash, offset) pairs and unique hashes — the reference's
@@ -24,7 +24,7 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from ..ops.fingerprint import fingerprint_batch_fused, fingerprint_batch
+from ..ops.fingerprint import fingerprint_batch
 from .lookup import (match_local, match_query_pruned, match_query_sparse,
                      query_total, rank_votes, RawMatch, check_vote_key,
                      _expand_any_spans, _pruned_vote_rank,
@@ -33,8 +33,8 @@ from .lookup import (match_local, match_query_pruned, match_query_sparse,
 
 def _fingerprint_dedup(samples, n_valid, *, fs, wsize, hop, amp_min,
                        radius, fan_value, min_dt, max_dt, peak_capacity,
-                       use_fused, query_capacity):
-    """Fused fingerprint + on-device query dedup (steps 1-2 of the
+                       query_capacity):
+    """Fingerprint + on-device query dedup (steps 1-2 of the
     single-dispatch program; shared by the flat and spanned matchers).
 
     Returns (sort_hi, lo, ex, t1, q_valid, q_first, n_pairs, n_peaks,
@@ -48,8 +48,7 @@ def _fingerprint_dedup(samples, n_valid, *, fs, wsize, hop, amp_min,
             "(ex, t1) dedup sort key would alias offsets. Use "
             "recognize_samples for clips longer than ~51 minutes."
         )
-    fp_fn = fingerprint_batch_fused if use_fused else fingerprint_batch
-    fp = fp_fn(
+    fp = fingerprint_batch(
         samples, n_valid,
         fs=fs, wsize=wsize, hop=hop, amp_min=amp_min, radius=radius,
         fan_value=fan_value, min_dt=min_dt, max_dt=max_dt,
@@ -109,7 +108,7 @@ def _fingerprint_dedup(samples, n_valid, *, fs, wsize, hop, amp_min,
 @functools.partial(
     jax.jit,
     static_argnames=("fs", "wsize", "hop", "amp_min", "radius", "fan_value",
-                     "min_dt", "max_dt", "peak_capacity", "use_fused",
+                     "min_dt", "max_dt", "peak_capacity",
                      "query_capacity", "u_steps"),
 )
 def fingerprint_probe_on_device(
@@ -126,17 +125,16 @@ def fingerprint_probe_on_device(
     min_dt: int = 0,
     max_dt: int = 200,
     peak_capacity: int = 4096,
-    use_fused: bool = True,
     query_capacity: int = 4096,
     head=None,
     uview=None,
     u_steps: int = 0,
 ):
-    """Fused fingerprint + EXACT-total bounds probe, pairs kept on device.
+    """Fingerprint + EXACT-total bounds probe, pairs kept on device.
 
     The big-index solo path (api.recognize_clip past
     config.bounds_probe_min_rows): at production scale every clip
-    overflows the fast tier, so the fused fast-tier match program is a
+    overflows the fast tier, so the single-dispatch fast-tier match is a
     wasted dispatch — this program fingerprints, dedups, and probes the
     exact matched-row total (lookup.query_total) in ONE dispatch; the
     caller reads the scalar total and dispatches the match ONCE at the
@@ -153,7 +151,7 @@ def fingerprint_probe_on_device(
      n_hashes_total) = _fingerprint_dedup(
         samples, n_valid, fs=fs, wsize=wsize, hop=hop, amp_min=amp_min,
         radius=radius, fan_value=fan_value, min_dt=min_dt, max_dt=max_dt,
-        peak_capacity=peak_capacity, use_fused=use_fused,
+        peak_capacity=peak_capacity,
         query_capacity=query_capacity,
     )
     total, lb, ub = query_total(index_arrays, sort_hi, lo, ex, q_valid,
@@ -168,7 +166,7 @@ def fingerprint_probe_on_device(
     static_argnames=("fs", "wsize", "hop", "amp_min", "radius", "fan_value",
                      "min_dt", "max_dt", "peak_capacity", "n_songs",
                      "delta_min", "delta_range", "match_capacity", "topn",
-                     "offset_stride", "use_fused", "query_capacity",
+                     "offset_stride", "query_capacity",
                      "u_steps", "rank_candidates", "sparse_threshold",
                      "vote_rank", "expand_block", "expand_runs"),
 )
@@ -192,7 +190,6 @@ def recognize_on_device(
     match_capacity: int = 16384,
     topn: int = 2,
     offset_stride: int = 0,
-    use_fused: bool = True,
     query_capacity: int = 4096,
     head=None,
     uview=None,
@@ -215,7 +212,7 @@ def recognize_on_device(
      n_hashes_total) = _fingerprint_dedup(
         samples, n_valid, fs=fs, wsize=wsize, hop=hop, amp_min=amp_min,
         radius=radius, fan_value=fan_value, min_dt=min_dt, max_dt=max_dt,
-        peak_capacity=peak_capacity, use_fused=use_fused,
+        peak_capacity=peak_capacity,
         query_capacity=query_capacity,
     )
 
@@ -261,7 +258,7 @@ def recognize_on_device(
     static_argnames=("fs", "wsize", "hop", "amp_min", "radius", "fan_value",
                      "min_dt", "max_dt", "peak_capacity", "n_songs",
                      "delta_min", "delta_range", "match_capacity", "topn",
-                     "offset_stride", "use_fused", "query_capacity",
+                     "offset_stride", "query_capacity",
                      "rank_candidates", "u_steps", "vote_rank",
                      "expand_block", "expand_runs"),
 )
@@ -285,7 +282,6 @@ def recognize_on_device_spanned(
     match_capacity: int = 16384,
     topn: int = 2,
     offset_stride: int = 0,
-    use_fused: bool = True,
     query_capacity: int = 4096,
     heads=None,
     rank_candidates: int = 0,
@@ -310,7 +306,7 @@ def recognize_on_device_spanned(
      n_hashes_total) = _fingerprint_dedup(
         samples, n_valid, fs=fs, wsize=wsize, hop=hop, amp_min=amp_min,
         radius=radius, fan_value=fan_value, min_dt=min_dt, max_dt=max_dt,
-        peak_capacity=peak_capacity, use_fused=use_fused,
+        peak_capacity=peak_capacity,
         query_capacity=query_capacity,
     )
     sid, delta, first, valid, total, span_max, n_dropped = \

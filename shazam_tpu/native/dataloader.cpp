@@ -1,11 +1,11 @@
 // Native ingest data-loader: WAV decode + file SHA-1 + threaded batch fill.
 //
-// TPU-native equivalent of the reference's native decode path (pydub ->
+// Equivalent of the reference's native decode path (pydub ->
 // ffmpeg C code at reference __init__.py:86 and the SHA-1 file hashing of
 // unique_hash at __init__.py:305-323): the host-side loader that keeps the
 // device fed during ingest. Decoding and hashing release the GIL entirely
 // (plain C ABI via ctypes) and fan out over a std::thread pool, so corpus
-// decode overlaps with TPU fingerprinting.
+// decode overlaps with device fingerprinting.
 //
 // Scope: 8/16/24/32-bit PCM and float32 RIFF/WAVE (the formats the Python
 // fallback in audio/io.py supports); everything else returns an error and

@@ -1,9 +1,9 @@
 """The full fingerprint pipeline: samples -> 80-bit hash keys + offsets.
 
-TPU-native replacement for reference ``fingerprint()``
-(``__init__.py:212-245``): fused spectrogram -> dB -> peak constellation
--> fan-out pair hashing, one jitted program with static shapes. Batched
-ingest vmaps this over a leading song axis.
+Replacement for reference ``fingerprint()`` (``__init__.py:212-245``):
+spectrogram -> dB -> peak constellation -> fan-out pair hashing, one
+jitted program with static shapes. Batched ingest vmaps this over a
+leading song axis.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import numpy as np
 
 from ..config import FingerprintConfig, DEFAULT_CONFIG
 from .spectrogram import spectrogram_db
-from .peaks import extract_peaks
+from .peaks import extract_peaks_from_mask, peak_mask
 from .hashes import generate_hashes
 from .sha1 import keys_to_hex
 
@@ -64,87 +64,32 @@ def fingerprint_samples(
     unpadded signal (zero columns are background for the peak picker and
     can never pass the strict amp > amp_min gate).
     """
-    spec = spectrogram_db(samples, fs=fs, wsize=wsize, hop=hop)
-    if n_valid_samples is not None:
-        if amp_min <= 0:
-            raise ValueError(
-                "pad-to-bucket fingerprinting requires amp_min > 0: the "
-                "zeroed pad columns rely on the strict amp > amp_min "
-                "gate to stay peak-free (amp_min <= 0 would admit "
-                "phantom peaks past the valid frames)")
-        n_valid_frames = jnp.maximum(
-            (n_valid_samples.astype(jnp.int32) - wsize) // hop + 1, 0
-        )
-        col = jnp.arange(spec.shape[1], dtype=jnp.int32)[None, :]
-        spec = jnp.where(col < n_valid_frames, spec, 0.0)
-    times, freqs, n_peaks = extract_peaks(
-        spec, amp_min, radius=radius, capacity=peak_capacity
-    )
-    hi, lo, ex, t1, valid = generate_hashes(
-        times, freqs, jnp.minimum(n_peaks, jnp.uint32(peak_capacity)),
-        fan_value=fan_value, min_dt=min_dt, max_dt=max_dt,
-    )
-    return Fingerprints(hi, lo, ex, t1, valid, n_peaks)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("fs", "wsize", "hop", "amp_min", "radius", "fan_value",
-                     "min_dt", "max_dt", "peak_capacity", "group_cap"),
-)
-def fingerprint_batch_fused(
-    samples: jnp.ndarray,
-    n_valid_samples: jnp.ndarray,
-    *,
-    fs: int = 44100,
-    wsize: int = 4096,
-    hop: int = 2048,
-    amp_min: float = 10.0,
-    radius: int = 10,
-    fan_value: int = 5,
-    min_dt: int = 0,
-    max_dt: int = 200,
-    peak_capacity: int = 8192,
-    group_cap: int = 8,
-) -> Fingerprints:
-    """Pallas-fused batch fingerprint (TPU hot path).
-
-    Same contract as ``fingerprint_batch`` but the spectrogram and the
-    peak mask + compaction run as fused Pallas kernels (one HBM pass
-    each) instead of the XLA op graph — ~4x faster on a v5e chip.
-    Requires wsize=4096, radius=10, amp_min>0.
-
-    Parity caveat (exactness tested in tests/test_pallas.py, end-to-end
-    hash sets jaccard-gated in tests/test_dsp_parity.py): the fused path
-    compares peaks in the POWER domain, where dB is strictly monotone in
-    real arithmetic but not on the f32 lattice — two distinct powers can
-    round to the same f32 dB, in which case the XLA path's plateau
-    semantics mark both cells while the power compare keeps only the
-    larger. Such dB-collision co-peaks are the only possible divergence;
-    they are rare enough that the measured hash-set jaccard stays > 0.99
-    and end-to-end accuracy is unaffected.
-    """
-    from .pallas.spectrogram import spectrogram_power_fused
-    from .pallas.peaks import peak_candidates_fused
-    from .pallas.compact import compact_candidates
-
-    nvf = jnp.maximum((n_valid_samples.astype(jnp.int32) - wsize) // hop + 1, 0)
-    # power domain end to end: the dB log is monotone, so the peak kernel
-    # gates raw power against the exact-equivalent f32 threshold
-    # (peaks.power_threshold) — identical peak masks, no 10*log10 pass
-    spec = spectrogram_power_fused(samples, nvf, fs=fs, wsize=wsize, hop=hop)
-    table = peak_candidates_fused(spec, amp_min=amp_min, radius=radius,
-                                  power_domain=True, group_cap=group_cap)
-    times, freqs, n_peaks = compact_candidates(table, peak_capacity,
-                                               group_cap=group_cap)
-
-    def hash_one(t, f, n):
-        return generate_hashes(
-            t, f, jnp.minimum(n, jnp.uint32(peak_capacity)),
+    if n_valid_samples is not None and amp_min <= 0:
+        raise ValueError(
+            "pad-to-bucket fingerprinting requires amp_min > 0: the "
+            "zeroed pad columns rely on the strict amp > amp_min "
+            "gate to stay peak-free (amp_min <= 0 would admit "
+            "phantom peaks past the valid frames)")
+    # one named scope per stage: profiler traces attribute device time
+    # to them (benchmarks/profile_pipeline.py)
+    with jax.named_scope("spectrogram"):
+        spec = spectrogram_db(samples, fs=fs, wsize=wsize, hop=hop)
+        if n_valid_samples is not None:
+            n_valid_frames = jnp.maximum(
+                (n_valid_samples.astype(jnp.int32) - wsize) // hop + 1, 0
+            )
+            col = jnp.arange(spec.shape[1], dtype=jnp.int32)[None, :]
+            spec = jnp.where(col < n_valid_frames, spec, 0.0)
+    with jax.named_scope("peaks"):
+        mask = peak_mask(spec, amp_min, radius=radius)
+    with jax.named_scope("compaction"):
+        times, freqs, n_peaks = extract_peaks_from_mask(
+            mask, capacity=peak_capacity)
+    with jax.named_scope("sha1"):
+        hi, lo, ex, t1, valid = generate_hashes(
+            times, freqs, jnp.minimum(n_peaks, jnp.uint32(peak_capacity)),
             fan_value=fan_value, min_dt=min_dt, max_dt=max_dt,
         )
-
-    hi, lo, ex, t1, valid = jax.vmap(hash_one)(times, freqs, n_peaks)
     return Fingerprints(hi, lo, ex, t1, valid, n_peaks)
 
 
@@ -169,9 +114,10 @@ def fingerprint_batch(
 ) -> Fingerprints:
     """vmapped fingerprint over a (batch, padded_len) song matrix.
 
-    TPU-native analog of the reference's multiprocessing ingest pool
+    The device analog of the reference's multiprocessing ingest pool
     (``__init__.py:335-357``): data parallelism over songs becomes one
-    batched device program.
+    batched device program. Every ingest and query path fingerprints
+    through this entry point (or its single-song body).
     """
     fn = functools.partial(
         fingerprint_samples,

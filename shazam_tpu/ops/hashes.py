@@ -5,7 +5,7 @@ time order, anchor i pairs with peaks i+1..i+fan_value-1, keep pairs with
 ``min_dt <= t2 - t1 <= max_dt``, hash "f1|f2|dt" with SHA-1 truncated to
 80 bits, emit with the anchor time.
 
-TPU-first: the fan-out is a *static* set of shifted slices (j = 1..fan-1),
+Device-first: the fan-out is a *static* set of shifted slices (j = 1..fan-1),
 so the pair set is a dense (fan-1, capacity) grid evaluated entirely with
 vector ops + masks — no data-dependent loops. Invalid lanes still run
 through SHA-1 (lane-parallel, effectively free) and are masked out.

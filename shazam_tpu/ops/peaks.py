@@ -10,10 +10,10 @@ Matches reference ``get_2D_peaks`` (``__init__.py:116-177``):
   the all-zero silence plateau,
 - strict ``amp > amp_min`` threshold.
 
-TPU-first design:
+Design:
 - The square footprint makes both the max filter and the erosion
   *separable*: two 1-D ``reduce_window`` passes (freq axis then time
-  axis) instead of a 441-tap 2-D window. XLA lowers these to fast VPU
+  axis) instead of a 441-tap 2-D window. XLA lowers these to fused
   sliding reductions.
 - scipy's default 'reflect' boundary duplicates in-window values only
   (a reflected cell at distance d < n from the edge maps back inside the
@@ -81,9 +81,9 @@ def extract_peaks(db_spec: jnp.ndarray, amp_min: float,
     Slots >= min(n_peaks, capacity) are filled with zeros and must be
     masked by the caller.
 
-    Two-level compaction (TPU-first): a flat top_k over the whole F x T
-    mask costs ~20x the rest of the pipeline on TPU, so we first compact
-    each STFT frame to `frame_capacity` candidates with a per-row top_k
+    Two-level compaction: a flat top_k over the whole F x T mask is far
+    costlier than the rest of the pipeline, so we first compact each
+    STFT frame to `frame_capacity` candidates with a per-row top_k
     over the 2049 freq bins, then run the global order-preserving top_k
     over only n_frames * frame_capacity candidates. If any frame holds
     more than `frame_capacity` peaks (a near-constant plateau — degenerate

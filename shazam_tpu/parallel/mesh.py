@@ -5,7 +5,7 @@ The reference's only scale-out lever was an external DB server (and an ES
 Here the catalog shards across a ``jax.sharding.Mesh``: the sorted index
 splits into contiguous key ranges, one per device, so every device owns a
 disjoint slice of hash space and lookups stay local; only the vote
-histograms cross ICI (one psum).
+histograms cross the device interconnect (one psum).
 """
 
 from __future__ import annotations

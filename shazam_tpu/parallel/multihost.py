@@ -1,17 +1,19 @@
-"""Multi-host catalog spanning: song shards across processes over DCN.
+"""Multi-host catalog spanning: song shards across processes over the
+network between hosts.
 
 The reference's only scale-out knob was an Elasticsearch shard count it
 pinned to 1 (``elastic_database.py:42,80``) — one external server, one
-host. Here a catalog larger than a slice's HBM spans *processes*:
+host. Here a catalog larger than one host's device memory spans
+*processes*:
 
 - ``init_multihost`` brings up ``jax.distributed`` (the JAX runtime's
-  process-spanning rendezvous; collectives ride ICI within a slice and
-  DCN across slices — on CPU test rigs, Gloo).
+  process-spanning rendezvous; collectives ride NVLink within a host
+  and the network across hosts — on CPU test rigs, Gloo).
 - ``SpannedCatalog`` places the by-song regime (``bigcatalog.py``) on a
   global mesh whose devices span every process. Each process
   materializes ONLY its own devices' song shards; the one collective per
   query is the tiny (topn x n_shards) candidate all_gather, which a
-  DCN-latency hop absorbs easily (the histograms and binary searches are
+  cross-host hop absorbs easily (the histograms and binary searches are
   all shard-local).
 
 Deterministic layout contract: global song s lives on shard
@@ -56,9 +58,11 @@ def init_multihost(
     import jax
 
     # NB: must not touch the backend before initialize(); read the
-    # *configured* platform rather than jax.default_backend()
+    # *configured* platform rather than jax.default_backend(). CPU
+    # collectives only where the CPU is named: an unset platform list
+    # is the normal case on a GPU host, whose collectives go over NCCL.
     platforms = jax.config.jax_platforms or ""
-    if "cpu" in platforms or platforms == "":
+    if "cpu" in platforms.split(","):
         try:
             jax.config.update("jax_cpu_collectives_implementation", "gloo")
         except Exception:
@@ -349,7 +353,7 @@ def distributed_ingest_arrays(
         remap[sid] = s
     gsid = remap[ix.song_id] if ix.n_hashes else ix.song_id
 
-    # ---- agree on global meta (one tiny DCN allgather at ingest) ----
+    # ---- agree on global meta (one tiny cross-host allgather at ingest) ----
     shard_of = gsid % n_shards if ix.n_hashes else gsid
     counts = np.bincount(shard_of, minlength=n_shards) if ix.n_hashes \
         else np.zeros(n_shards, np.int64)

@@ -4,7 +4,7 @@
 caches on the host and device_gets every new column — fine for 15 s
 windows, but each ``feed``/``recognize`` round-trips columns and runs
 variable-shape programs (a fresh XLA compile per distinct chunk size).
-This engine is the TPU-shaped version:
+This engine is the fixed-shape device version:
 
 - state is two HBM ring buffers, (ring_frames, n_freqs) spectrogram dB
   and settled peak-mask rows; the host holds only scalar counters and a
@@ -21,8 +21,8 @@ Results are identical to fingerprinting the window from scratch
 (tests/test_stream_device.py): settled interior columns saw their full
 ±radius context, and zero-filled pre-stream rows are exact because the
 amp_min > 0 gate makes zero background indistinguishable from the
-boundary clipping of a full pass (same argument as the fused Pallas
-peaks kernel). Reference behavior matched: the capture loop at
+boundary clipping of a full pass (the same argument that lets batch
+ingest zero its padded columns). Reference behavior matched: the capture loop at
 ``recognizer.py:355-382`` refingerprints its whole window every pass;
 here device work per call is proportional to NEW audio.
 """

@@ -18,10 +18,9 @@ Checks (host-resident index):
 
 Device-resident stores (``DeviceIndex`` / ``SpannedDeviceStore``) are
 checked span-by-span with streaming device reductions only — a
-sortedness scan and a payload max — NEVER a row-scale scatter (a
-histogram over 436M rows is exactly the device-program shape this
-worker kills; per-song counts at that scale come from the catalog
-totals vs ``n_valid`` instead).
+sortedness scan and a payload max — never a row-scale scatter (a
+histogram over 436M rows; per-song counts at that scale come from the
+catalog totals vs ``n_valid`` instead).
 
 Catalog-side (always):
 

@@ -82,10 +82,9 @@ def main() -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.expanduser("~/.cache/shazam_tpu_xla_tests"),
-    )
+    from shazam_tpu.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
 

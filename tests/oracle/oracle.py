@@ -2,8 +2,10 @@
 the reference pipeline (reference ``__init__.py:116-245`` and
 ``recognizer.py:222-338``).
 
-This module is TEST-ONLY. It freezes the behavior the TPU pipeline must
-reproduce: mlab.specgram numerics, masked 10*log10, scipy maximum_filter
+This module is the plain reference the tests and ``chip_smoke.py`` compare
+the device pipeline with. It freezes the behavior the pipeline must
+reproduce: mlab.specgram numerics (re-derived in NumPy, so the oracle needs
+no matplotlib), masked 10*log10, scipy maximum_filter
 plateau behavior, the erosion-XOR background trick, (time, freq) peak
 ordering, anchor/target pair enumeration, SHA-1 hex truncation, and the
 groupby vote/rank of align_matches.
@@ -15,8 +17,30 @@ import hashlib
 from collections import defaultdict
 
 import numpy as np
-from matplotlib import mlab
 from scipy.ndimage import binary_erosion, maximum_filter
+
+
+def mlab_psd_specgram(samples, fs=44100, wsize=4096, noverlap=2048):
+    """``mlab.specgram(x, NFFT=wsize, Fs=fs, window=window_hanning,
+    noverlap=noverlap)[0]`` in float64 NumPy, shape (n_freqs, n_frames).
+
+    Frames of ``wsize`` samples every ``wsize - noverlap`` (no padding,
+    except that a signal shorter than one window is zero-padded to it,
+    as mlab does), symmetric Hann window (``np.hanning``), one-sided PSD
+    with every bin but DC and Nyquist doubled, scaled by
+    ``1 / (fs * sum(window**2))``.
+    """
+    x = np.asarray(samples, np.float64)
+    if len(x) < wsize:
+        x = np.concatenate([x, np.zeros(wsize - len(x))])
+    step = wsize - noverlap
+    n_frames = (len(x) - wsize) // step + 1
+    win = np.hanning(wsize)
+    idx = np.arange(n_frames)[:, None] * step + np.arange(wsize)[None, :]
+    spec = np.abs(np.fft.rfft(x[idx] * win, axis=1)) ** 2
+    spec[:, 1:(-1 if wsize % 2 == 0 else None)] *= 2.0
+    spec /= fs * np.sum(win * win)
+    return spec.T
 
 
 def oracle_spectrogram(samples, fs=44100, wsize=4096, wratio=0.5):
@@ -26,13 +50,8 @@ def oracle_spectrogram(samples, fs=44100, wsize=4096, wratio=0.5):
     (``__init__.py:232-241``): mlab.specgram PSD (Hann window, one-sided,
     scale_by_freq) then 10*log10 with exact zeros kept at 0.
     """
-    spec = mlab.specgram(
-        np.asarray(samples),
-        NFFT=wsize,
-        Fs=fs,
-        window=mlab.window_hanning,
-        noverlap=int(wsize * wratio),
-    )[0]
+    spec = mlab_psd_specgram(samples, fs=fs, wsize=wsize,
+                             noverlap=int(wsize * wratio))
     out = np.zeros_like(spec)
     np.log10(spec, out=out, where=(spec != 0))
     return 10.0 * out

@@ -1,11 +1,11 @@
 """Pin bench.py's real-index query headline path.
 
-The driver-captured headline loads a CATALOG_SAVE snapshot
+The real-index headline loads a CATALOG_SAVE snapshot
 (prefix.idx.npz + prefix.queries.npz, written by
 benchmarks/catalog_full.py) — this test builds a tiny snapshot in the
 same format and drives `bench_query_latency_real` end to end, so the
 file contract (array keys, pack shapes, tier probing, the chained
-timing loop) is covered in CI and not just on the TPU box.
+timing loop) is covered on the CPU and not just on the card.
 """
 
 import numpy as np

@@ -1,15 +1,12 @@
 """Oracle parity for NON-reference configs.
 
-The XLA path (`ops/fingerprint.py`) is fully parameterized — window
+The fingerprint pipeline (`ops/fingerprint.py`) is fully parameterized — window
 size, hop, peak radius, fan-out, time-delta window, amp threshold,
 sample rate — and `FingerprintConfig` invites users to change them
 (the reference exposed the same knobs, ``__init__.py:41-51``). Parity
 was previously gated only at the reference config; these tests pin the
 whole parameter surface against the equally-parameterized oracle so a
 custom-config deployment inherits the same correctness contract.
-
-(The fused Pallas path intentionally requires the reference config and
-routes elsewhere otherwise — that guard is tested in test_pallas.py.)
 """
 
 import numpy as np

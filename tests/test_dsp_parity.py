@@ -113,3 +113,28 @@ def test_fingerprint_end_to_end_parity(short_clip):
     union = len(ours | ref)
     jaccard = inter / union
     assert jaccard > 0.98, f"jaccard={jaccard} ({len(ours)} vs {len(ref)})"
+
+
+@pytest.mark.parametrize("signal", ["song", "short", "odd_length"])
+def test_oracle_spectrogram_matches_mlab(signal):
+    """The oracle's NumPy PSD is mlab.specgram's (the reference's call),
+    including the zero-pad of a signal shorter than one window."""
+    mlab = pytest.importorskip("matplotlib.mlab")
+    from shazam_tpu.audio.synth import synth_song
+    from tests.oracle.oracle import mlab_psd_specgram
+
+    rng = np.random.default_rng(3)
+    x = {"song": lambda: synth_song(3, duration_s=4.0, seed=1),
+         "short": lambda: rng.normal(size=3000),
+         "odd_length": lambda: rng.normal(size=4096 * 3 + 17)}[signal]()
+    with np.errstate(all="ignore"):
+        import warnings
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            ref = mlab.specgram(np.asarray(x), NFFT=4096, Fs=44100,
+                                window=mlab.window_hanning,
+                                noverlap=2048)[0]
+    got = mlab_psd_specgram(x)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=1e-9, atol=1e-12 * ref.max())

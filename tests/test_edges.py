@@ -85,7 +85,7 @@ def test_recognize_on_device_rejects_overlong_clip():
         recognize_on_device(
             x, jnp.asarray([n], jnp.int32), (z, z, z, z),
             n_songs=4, delta_min=-1024, delta_range=4096,
-            offset_stride=4096, use_fused=False)
+            offset_stride=4096)
 
 
 def test_apriori_multibatch_total_not_flagged_overflow():

@@ -1,4 +1,4 @@
-"""Multi-host (DCN) catalog spanning: 2 localhost processes x 4 virtual
+"""Multi-host catalog spanning: 2 localhost processes x 4 virtual
 CPU devices run one song-sharded query end to end via jax.distributed
 (SURVEY.md §5 'Distributed communication backend'; the knob the reference
 pinned to 1, elastic_database.py:42,80)."""
